@@ -1,7 +1,7 @@
 // Native prefetching stereo-frame loader (C ABI, loaded via ctypes).
 //
 // The reference's Examples/*.cc mains read images synchronously with
-// cv::imread in the tracking loop; at TPU frame rates (>100 fps) the
+// cv::imread in the tracking loop; at accelerator frame rates (>100 fps) the
 // decode becomes the bottleneck.  This loader owns a worker-thread pool
 // that decodes frames ahead of the consumer into a bounded ring of
 // preallocated grayscale buffers — the host-side "dataloader" limb of

@@ -1,6 +1,6 @@
-"""orb_line_slam_tpu — a TPU-native stereo point+line SLAM engine.
+"""orb_line_slam_tpu — a JAX stereo point+line SLAM engine.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of
+Built from scratch in JAX/XLA with the capabilities of
 robotseu/ORB_Line_SLAM (an ORB-SLAM2-derived point+line system; see
 SURVEY.md for the structural analysis of the reference).
 

@@ -1,13 +1,12 @@
-"""MXU-friendly Hessian-block assembly + small batched inverses.
+"""Hessian-block assembly as one-hot matmuls + small batched inverses.
 
 The BA solvers reduce per-observation blocks into per-camera /
-per-landmark Hessian blocks.  Expressed as ``zeros().at[idx].add(...)``
-XLA lowers a serialized scatter loop on TPU; expressed as a one-hot
-matmul the same reduction rides the MXU (measured ~3x at the local-BA
-bucket sizes, tools/exp_ba_scatter.py).  Likewise ``jnp.linalg.inv`` on
-a [P, 3, 3] batch lowers to batched LU (~4.8 ms at P=4096); the
-closed-form cofactor inverse is ~3x faster and exact to f32 rounding
-for the well-conditioned damped SPD blocks BA produces.
+per-landmark Hessian blocks, here as one-hot matmuls rather than
+``zeros().at[idx].add(...)`` scatters.  Whether a scatter-add is faster
+on the GPU is not measured yet (ROADMAP D9).  ``jnp.linalg.inv`` on a
+[P, 3, 3] batch lowers to batched LU; the closed-form cofactor inverse
+is exact to f32 rounding for the well-conditioned damped SPD blocks BA
+produces.
 
 Replaces the sparse-block machinery of g2o's BlockSolver
 (Thirdparty/g2o/g2o/core/block_solver.h — SURVEY.md §2.2): the
@@ -20,6 +19,11 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
+# Exact segment sums need full f32 products (TF32 would round the
+# summed blocks to ~1e-3).
+_HI = jax.lax.Precision.HIGHEST
+
+
 
 def onehot_f32(idx: jnp.ndarray, n_rows: int) -> jnp.ndarray:
     """[n_rows, O] one-hot selection matrix (f32 so the matmul is
@@ -30,7 +34,7 @@ def onehot_f32(idx: jnp.ndarray, n_rows: int) -> jnp.ndarray:
 def assemble(oh: jnp.ndarray, vals: jnp.ndarray) -> jnp.ndarray:
     """Segment-sum vals [O, ...] into [n_rows, ...] via one matmul."""
     flat = vals.reshape(vals.shape[0], -1)
-    out = jax.lax.dot(oh, flat, preferred_element_type=jnp.float32)
+    out = jax.lax.dot(oh, flat, precision=_HI, preferred_element_type=jnp.float32)
     return out.reshape(oh.shape[0], *vals.shape[1:])
 
 
@@ -44,9 +48,10 @@ def assemble_coupling(
     O = blocks.shape[0]
     k = blocks.shape[1] * blocks.shape[2]
     C = oh_cam.shape[0]
-    placed = jnp.einsum("co,oj->ocj", oh_cam, blocks.reshape(O, k))
+    placed = jnp.einsum("co,oj->ocj", oh_cam, blocks.reshape(O, k), precision=_HI)
     out = jax.lax.dot(
-        oh_lm, placed.reshape(O, C * k), preferred_element_type=jnp.float32
+        oh_lm, placed.reshape(O, C * k), precision=_HI,
+        preferred_element_type=jnp.float32,
     )
     return out.reshape(oh_lm.shape[0], C, blocks.shape[1], blocks.shape[2])
 
@@ -126,14 +131,17 @@ def inv44(H: jnp.ndarray) -> jnp.ndarray:
             * inv_det[..., None, None]
         )
 
+    def mm(a, b):
+        return jnp.matmul(a, b, precision=_HI)
+
     Ai = inv22(A)
-    S = D - C @ Ai @ B
+    S = D - mm(mm(C, Ai), B)
     Si = inv22(S)
-    AiB = Ai @ B
-    CAi = C @ Ai
-    top_left = Ai + AiB @ Si @ CAi
-    top_right = -AiB @ Si
-    bot_left = -Si @ CAi
+    AiB = mm(Ai, B)
+    CAi = mm(C, Ai)
+    top_left = Ai + mm(mm(AiB, Si), CAi)
+    top_right = -mm(AiB, Si)
+    bot_left = -mm(Si, CAi)
     return jnp.concatenate(
         [
             jnp.concatenate([top_left, top_right], axis=-1),

@@ -6,11 +6,10 @@ local windows (<= ~48 cameras), but at global-BA scale (hundreds of
 keyframes x tens of thousands of landmarks) B alone is gigabytes.  This
 is the sparse path the reference gets from g2o's BlockSolver_6_3 +
 CHOLMOD (src/Optimizer.cc GlobalBundleAdjustemnt, SURVEY.md §2.1 row 13,
-§7.2 hard-part #3), rebuilt for TPU:
+§7.2 hard-part #3), rebuilt for an accelerator:
 
   - never materialize B or S: every product against them is a
-    segment-sum over the observation list (scatter-add — XLA lowers
-    these to efficient sorted-segment ops on TPU);
+    segment-sum over the observation list (scatter-add);
   - solve S dc = rhs by preconditioned conjugate gradients with the
     block-Jacobi (per-camera 6x6) preconditioner — the standard
     large-BA recipe (cf. "Bundle Adjustment in the Large"'s CG variant);
@@ -28,6 +27,12 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+
+# Normal equations in full f32: a reduced matmul precision (TF32 on the
+# GPU) carries ~1e-3 relative error into the Hessian and the gradient,
+# which moves the solution.
+_HI = jax.lax.Precision.HIGHEST
+
 
 from ..geometry.camera import CameraIntrinsics
 from ..geometry.se3 import se3_compose, se3_exp
@@ -93,11 +98,11 @@ def bundle_adjust_cg(
 
         # Per-observation weighted blocks kept in OBSERVATION-major
         # layout; B/S never materialize.
-        JcT_Jc = jnp.einsum("odi,odj,o->oij", Jc, Jc, w)   # [O,6,6]
-        JpT_Jp = jnp.einsum("odi,odj,o->oij", Jp, Jp, w)   # [O,3,3]
-        JcT_Jp = jnp.einsum("odi,odj,o->oij", Jc, Jp, w)   # [O,6,3]
-        gc_o = jnp.einsum("odi,od,o->oi", Jc, r, w)        # [O,6]
-        gp_o = jnp.einsum("odi,od,o->oi", Jp, r, w)        # [O,3]
+        JcT_Jc = jnp.einsum("odi,odj,o->oij", Jc, Jc, w, precision=_HI)   # [O,6,6]
+        JpT_Jp = jnp.einsum("odi,odj,o->oij", Jp, Jp, w, precision=_HI)   # [O,3,3]
+        JcT_Jp = jnp.einsum("odi,odj,o->oij", Jc, Jp, w, precision=_HI)   # [O,6,3]
+        gc_o = jnp.einsum("odi,od,o->oi", Jc, r, w, precision=_HI)        # [O,6]
+        gp_o = jnp.einsum("odi,od,o->oi", Jp, r, w, precision=_HI)        # [O,3]
 
         Hcc = jnp.zeros((C, 6, 6)).at[obs_cam].add(JcT_Jc)
         Hpp = jnp.zeros((P, 3, 3)).at[obs_lm].add(JpT_Jp)
@@ -113,30 +118,30 @@ def bundle_adjust_cg(
 
         def bt_x(x):
             """B^T x: [C,6] -> [P,3] via one observation sweep."""
-            yo = jnp.einsum("oij,oi->oj", JcT_Jp, x[obs_cam])  # [O,3]
+            yo = jnp.einsum("oij,oi->oj", JcT_Jp, x[obs_cam], precision=_HI)  # [O,3]
             return jnp.zeros((P, 3)).at[obs_lm].add(yo)
 
         def b_z(z):
             """B z: [P,3] -> [C,6] via one observation sweep."""
-            uo = jnp.einsum("oij,oj->oi", JcT_Jp, z[obs_lm])  # [O,6]
+            uo = jnp.einsum("oij,oj->oi", JcT_Jp, z[obs_lm], precision=_HI)  # [O,6]
             return jnp.zeros((C, 6)).at[obs_cam].add(uo)
 
         def s_matvec(x):
             """Schur product S x with fixed cameras as identity rows."""
             xm = x * m[:, None]
-            hx = jnp.einsum("cij,cj->ci", Hcc, xm)
-            z = jnp.einsum("pij,pj->pi", V, bt_x(xm))
+            hx = jnp.einsum("cij,cj->ci", Hcc, xm, precision=_HI)
+            z = jnp.einsum("pij,pj->pi", V, bt_x(xm), precision=_HI)
             sx = (hx - b_z(z)) * m[:, None]
             return sx + x * (1.0 - m)[:, None]
 
         # rhs = -(gc - B V gp), masked at fixed cameras.
-        rhs = -(gc - b_z(jnp.einsum("pij,pj->pi", V, gp))) * m[:, None]
+        rhs = -(gc - b_z(jnp.einsum("pij,pj->pi", V, gp, precision=_HI))) * m[:, None]
 
         # Block-Jacobi preconditioner: per-camera 6x6 inverse of Hcc.
         Minv = jnp.linalg.inv(Hcc + 1e-6 * jnp.eye(6))
 
         def precond(v):
-            return jnp.einsum("cij,cj->ci", Minv, v * m[:, None]) * m[:, None] + v * (
+            return jnp.einsum("cij,cj->ci", Minv, v * m[:, None], precision=_HI) * m[:, None] + v * (
                 1.0 - m
             )[:, None]
 
@@ -161,7 +166,7 @@ def bundle_adjust_cg(
         dc = dc * m[:, None]
 
         # Landmark back-substitution: dp = -V (gp + B^T dc).
-        dp = -jnp.einsum("pij,pj->pi", V, gp + bt_x(dc))
+        dp = -jnp.einsum("pij,pj->pi", V, gp + bt_x(dc), precision=_HI)
         dp = dp * point_valid[:, None]
 
         dR, dt = se3_exp(dc * free_c)

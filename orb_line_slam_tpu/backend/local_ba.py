@@ -1,10 +1,10 @@
 """Bundle adjustment with dense-block Schur complement reduction.
 
-TPU-native rebuild of Optimizer::LocalBundleAdjustment and
+Static-shape JAX rebuild of Optimizer::LocalBundleAdjustment and
 GlobalBundleAdjustemnt (src/Optimizer.cc, SURVEY.md §2.1 row 13, §3.3
 "back-end hot loop").  The reference hands g2o a sparse graph and lets
-BlockSolver_6_3 do sparse Schur; here the same math is laid out for the
-MXU with static shapes:
+BlockSolver_6_3 do sparse Schur; here the same math is laid out as dense
+batched matmuls with static shapes:
 
   - per-observation residuals + Jacobians (autodiff, batched);
   - camera-diagonal blocks Hcc [C,6,6] and landmark blocks Hpp [P,3,3]
@@ -30,6 +30,12 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+
+# Normal equations in full f32: a reduced matmul precision (TF32 on the
+# GPU) carries ~1e-3 relative error into the Hessian and the gradient,
+# which moves the solution.
+_HI = jax.lax.Precision.HIGHEST
+
 
 from ..geometry.camera import CameraIntrinsics
 from ..geometry.se3 import se3_compose, se3_exp
@@ -123,13 +129,13 @@ def bundle_adjust(
             w = w * huber_weight(c, CHI2_STEREO)
 
         # Weighted blocks per observation.
-        JcT_Jc = jnp.einsum("odi,odj,o->oij", Jc, Jc, w)     # [O,6,6]
-        JpT_Jp = jnp.einsum("odi,odj,o->oij", Jp, Jp, w)     # [O,3,3]
-        JcT_Jp = jnp.einsum("odi,odj,o->oij", Jc, Jp, w)     # [O,6,3]
-        gc_o = jnp.einsum("odi,od,o->oi", Jc, r, w)          # [O,6]
-        gp_o = jnp.einsum("odi,od,o->oi", Jp, r, w)          # [O,3]
+        JcT_Jc = jnp.einsum("odi,odj,o->oij", Jc, Jc, w, precision=_HI)     # [O,6,6]
+        JpT_Jp = jnp.einsum("odi,odj,o->oij", Jp, Jp, w, precision=_HI)     # [O,3,3]
+        JcT_Jp = jnp.einsum("odi,odj,o->oij", Jc, Jp, w, precision=_HI)     # [O,6,3]
+        gc_o = jnp.einsum("odi,od,o->oi", Jc, r, w, precision=_HI)          # [O,6]
+        gp_o = jnp.einsum("odi,od,o->oi", Jp, r, w, precision=_HI)          # [O,3]
 
-        # Block assembly as one-hot matmuls (MXU) — see backend/assembly.
+        # Block assembly as one-hot matmuls — see backend/assembly.
         Hcc = assemble(oh_cam, JcT_Jc)
         Hpp = assemble(oh_lm, JpT_Jp)
         gc = assemble(oh_cam, gc_o)
@@ -149,9 +155,9 @@ def bundle_adjust(
         # explicit [C6, P3] transposes (the two tensor copies were ~45%
         # of the iteration on-chip; tools/exp_schur2.py: 2.35 -> 1.65 ms).
         L = chol33(V)
-        GL = jnp.einsum("oij,ojk->oik", JcT_Jp, L[obs_lm])   # [O,6,3]
+        GL = jnp.einsum("oij,ojk->oik", JcT_Jp, L[obs_lm], precision=_HI)   # [O,6,3]
         BL = assemble_coupling(oh_lm, oh_cam, GL)            # [P,C,6,3]
-        u = jnp.einsum("pji,pj->pi", L, gp)                  # L^T gp
+        u = jnp.einsum("pji,pj->pi", L, gp, precision=_HI)                  # L^T gp
         Hcc_full = jnp.zeros((C * 6, C * 6))
         idx = jnp.arange(C)
         Hcc_full = Hcc_full.reshape(C, 6, C, 6).at[idx, :, idx, :].set(Hcc).reshape(
@@ -165,7 +171,7 @@ def bundle_adjust(
             preferred_element_type=jnp.float32,
             precision=jax.lax.Precision.HIGHEST,
         ).reshape(C * 6, C * 6)
-        rhs = -(gc - jnp.einsum("pcik,pk->ci", BL, u)).reshape(C * 6)
+        rhs = -(gc - jnp.einsum("pcik,pk->ci", BL, u, precision=_HI)).reshape(C * 6)
 
         # Fixed cameras: identity rows/cols, zero rhs.
         m = jnp.repeat(free_c[:, 0], 6)  # [C6]
@@ -175,10 +181,10 @@ def bundle_adjust(
         dc = jnp.linalg.solve(S, rhs).reshape(C, 6)
         # dp = -V(gp + B^T dc); with B^T dc = L^{-T}(BL^T dc) this is
         # -(V gp + L (BL^T dc)) — no B needed.
-        blt_dc = jnp.einsum("pcik,ci->pk", BL, dc)
+        blt_dc = jnp.einsum("pcik,ci->pk", BL, dc, precision=_HI)
         dp = -(
-            jnp.einsum("pij,pj->pi", V, gp)
-            + jnp.einsum("pij,pj->pi", L, blt_dc)
+            jnp.einsum("pij,pj->pi", V, gp, precision=_HI)
+            + jnp.einsum("pij,pj->pi", L, blt_dc, precision=_HI)
         )
         dp = dp * point_valid[:, None]
 

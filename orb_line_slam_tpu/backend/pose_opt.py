@@ -1,6 +1,6 @@
 """Motion-only bundle adjustment (the per-frame pose solve).
 
-TPU-native rebuild of Optimizer::PoseOptimization (src/Optimizer.cc,
+Static-shape JAX rebuild of Optimizer::PoseOptimization (src/Optimizer.cc,
 SURVEY.md §2.1 row 13, §3.2 "hot loop 5"): one free SE3 vertex, unary
 point edges (mono + stereo) and optional line edges; 4 rounds of 10 LM
 iterations with chi2 outlier gating between rounds (5.991 mono /
@@ -8,7 +8,7 @@ iterations with chi2 outlier gating between rounds (5.991 mono /
 schedule the reference hardcodes.
 
 The normal equations are 6x6: H = sum_i w_i J_i^T S_i J_i accumulated
-with one batched einsum (VPU/MXU), solved densely.  The whole optimizer
+with one batched einsum, solved densely.  The whole optimizer
 is a single jitted program with static iteration counts.
 """
 
@@ -105,8 +105,9 @@ def pose_optimize(
             w_l = jnp.where(l_in, w_l, 0.0)
 
             # HIGHEST: the 6x6 normal equations contract over thousands
-            # of observations — TPU's default bf16 matmul injects ~0.4%
-            # noise into H for zero savings at this size.
+            # of observations — a reduced default matmul precision (bf16,
+            # or TF32 on the GPU) injects noise into H for zero savings
+            # at this size.
             hp = jax.lax.Precision.HIGHEST
             H = jnp.einsum("mdi,mdj,m->ij", Jp, Jp, w_p, precision=hp) + jnp.einsum(
                 "ldi,ldj,l->ij", Jl, Jl, w_l, precision=hp

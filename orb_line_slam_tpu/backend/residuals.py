@@ -1,6 +1,6 @@
 """Reprojection residuals for points (mono/stereo) and 3D line segments.
 
-TPU-native formulation of the g2o edge types the reference builds in
+Static-shape JAX formulation of the g2o edge types the reference builds in
 src/Optimizer.cc (SURVEY.md §2.1 row 13):
   - EdgeSE3ProjectXYZ(OnlyPose):      2-DoF mono point reprojection
   - EdgeStereoSE3ProjectXYZ(OnlyPose): 3-DoF stereo (u, v, uR)

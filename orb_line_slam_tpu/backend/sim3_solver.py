@@ -29,7 +29,7 @@ def horn_alignment(p1: jnp.ndarray, p2: jnp.ndarray, fix_scale: bool):
     c2 = jnp.mean(p2, axis=-2, keepdims=True)
     x1 = p1 - c1
     x2 = p2 - c2
-    M = jnp.einsum("...ni,...nj->...ij", x1, x2)  # correlation
+    M = jnp.einsum("...ni,...nj->...ij", x1, x2, precision=_HI)  # correlation
     U, D, Vt = jnp.linalg.svd(M)
     det = jnp.linalg.det(jnp.matmul(U, Vt, precision=_HI))
     S = jnp.broadcast_to(jnp.eye(3), M.shape).copy()

@@ -4,14 +4,13 @@ The reference parses per-dataset YAML with cv::FileStorage
 (src/Tracking.cc ctor; SURVEY.md §5 "Config / flag system") with keys
 like ``Camera.fx``, ``ORBextractor.nFeatures``, ``ThDepth`` and EuRoC
 stereo-rectification blocks ``LEFT.*/RIGHT.*``.  ``load_settings``
-accepts those files verbatim (capability parity) on top of plain-YAML
-files of our own.
+accepts those files verbatim (capability parity), and files of our own
+written in the same subset.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import re
 from pathlib import Path
 from typing import Any, Optional
 
@@ -95,27 +94,59 @@ class SlamConfig:
     rectify: Optional[dict] = None
 
 
+def _scalar(text: str) -> Any:
+    """A YAML plain scalar: int, float, or the string itself."""
+    for cast in (int, float):
+        try:
+            return cast(text)
+        except ValueError:
+            pass
+    return text.strip("'\"")
+
+
 def _parse_opencv_yaml(text: str) -> dict[str, Any]:
     """Parse cv::FileStorage YAML (the reference's settings format).
 
-    Handles the %YAML:1.0 directive, scalar ``Key.sub: value`` entries
-    and opencv-matrix nodes (rows/cols/dt/data).
+    Handles the subset the settings files use: the %YAML:1.0 directive,
+    ``#`` comments, scalar ``Key.sub: value`` entries and
+    ``!!opencv-matrix`` nodes (indented rows/cols/dt and a flow-sequence
+    ``data`` that may span several lines).
     """
-    import yaml
-
-    text = re.sub(r"^%YAML:.*$", "", text, flags=re.M)
-    text = text.replace("!!opencv-matrix", "")
-    data = yaml.safe_load(text)
-    if data is None:
-        return {}
-    out = {}
-    for k, v in data.items():
-        if isinstance(v, dict) and "data" in v and "rows" in v:
-            out[k] = np.array(v["data"], dtype=np.float64).reshape(
-                int(v["rows"]), int(v["cols"])
-            )
+    out: dict[str, Any] = {}
+    matrix: Optional[dict] = None
+    key = None
+    data_buf: Optional[str] = None
+    for raw in text.splitlines():
+        line = raw.split("#", 1)[0].rstrip()
+        if not line.strip() or line.startswith("%"):
+            continue
+        if data_buf is not None:  # continuation of a multi-line data: [...]
+            data_buf += " " + line.strip()
         else:
-            out[k] = v
+            k, sep, v = line.strip().partition(":")
+            if not sep:
+                raise ValueError(f"malformed settings line: {raw!r}")
+            k, v = k.strip(), v.strip()
+            if matrix is not None and raw[:1].isspace():
+                if k != "data":
+                    matrix[k] = _scalar(v)
+                    continue
+                data_buf = v
+            else:
+                matrix = None
+                if v == "!!opencv-matrix":
+                    matrix, key = {}, k
+                else:
+                    out[k] = _scalar(v)
+                continue
+        if data_buf.endswith("]"):
+            vals = [float(x) for x in data_buf.strip("[]").split(",") if x.strip()]
+            out[key] = np.array(vals, dtype=np.float64).reshape(
+                int(matrix["rows"]), int(matrix["cols"])
+            )
+            data_buf = None
+    if data_buf is not None:
+        raise ValueError(f"unterminated matrix data for {key!r}")
     return out
 
 

@@ -2,7 +2,7 @@
 
 Replaces the reference's Pangolin Viewer/FrameDrawer/MapDrawer threads
 (src/{Viewer,FrameDrawer,MapDrawer}.cc — SURVEY.md §2.1 row 20, §5
-observability) with offline artifacts suitable for headless TPU runs:
+observability) with offline artifacts suitable for headless runs:
 a matplotlib map/trajectory figure, a per-frame overlay image, and a
 CSV metrics dump (inliers, state, timing) instead of the live GL view.
 """

@@ -1,12 +1,12 @@
 """Frame construction: the per-frame device program of the front-end.
 
-TPU-native rebuild of the Frame stereo constructor (src/Frame.cc,
+Static-shape JAX rebuild of the Frame stereo constructor (src/Frame.cc,
 SURVEY.md §2.1 row 5, §3.2): dual ORB extraction (batched instead of
 the reference's two pthreads), stereo row-band matching with SAD
 sub-pixel depth, and keypoint undistortion.  The reference's 64x48
 feature grid (AssignFeaturesToGrid/GetFeaturesInArea) has no analog
 here by design: windowed candidate lookup is done with dense masked
-distance matrices on the MXU (see matching/point_matcher.py).
+distance matrices (see matching/point_matcher.py).
 """
 
 from __future__ import annotations

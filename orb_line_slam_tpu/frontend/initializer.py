@@ -16,9 +16,9 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-# Small-K geometry contractions: TPU default bf16 rounding corrupts
-# DLT/reprojection at pixel scale (tools/exp_numerics.py); HIGHEST is
-# free at these shapes.
+# Small-K geometry contractions: reduced default matmul precision (bf16,
+# or TF32 on the GPU) corrupts DLT/reprojection at pixel scale
+# (tools/exp_numerics.py); HIGHEST is free at these shapes.
 _HI = jax.lax.Precision.HIGHEST
 
 from ..geometry.camera import CameraIntrinsics

@@ -70,7 +70,7 @@ def build_line_features(
     imgs = jnp.stack([img_left, img_right]).astype(jnp.float32)
     from ..ops.image import sobel_gradients
 
-    gxs, gys = sobel_gradients(imgs, precision=jax.lax.Precision.HIGH)
+    gxs, gys = sobel_gradients(imgs)
     det = jax.vmap(
         lambda im, gx, gy: detect_lines(im, n_lines=cfg.n_lines, grads=(gx, gy))
     )(imgs, gxs, gys)

@@ -1,6 +1,6 @@
 """Batched multi-level ORB extraction — the front-end "hot loop 1".
 
-TPU-native rebuild of ORBextractor::operator() (src/ORBextractor.cc,
+Static-shape JAX rebuild of ORBextractor::operator() (src/ORBextractor.cc,
 SURVEY.md §2.1 row 9, §3.2): 8-level pyramid (scale 1.2), dense FAST-9
 score stencil + 3x3 NMS per level, per-cell top-K spatial distribution
 (replacing the sequential octree), intensity-centroid orientation,
@@ -10,7 +10,7 @@ keypoints, one jit per image geometry.
 The reference runs left/right extraction on two pthreads
 (Frame stereo ctor, SURVEY.md §2.4); here both images go through the
 same jitted program back to back (or batched by the caller) and the
-parallelism comes from the VPU/MXU, not threads.
+parallelism comes from the device, not threads.
 """
 
 from __future__ import annotations
@@ -24,11 +24,11 @@ import jax.numpy as jnp
 from ..config import OrbConfig
 from ..ops.brief import (
     brief_descriptors_from_tiles,
+    gather_patch_tiles,
     ic_angle_from_tiles,
 )
 from ..ops.fast import fast_score_map, nms3x3
 from ..ops.image import build_pyramid, gaussian_blur, pyramid_shapes
-from ..ops.pallas_patches import gather_patch_tiles
 from ..ops.topk_grid import select_topk_grid
 
 
@@ -129,11 +129,11 @@ def blur_tiles(tiles: jnp.ndarray, sigma: float = 2.0, radius: int = 3) -> jnp.n
         dn = jax.lax.conv_dimension_numbers(
             x.shape, kh.shape, ("NCHW", "OIHW", "NCHW")
         )
-        # HIGHEST: TPU's default bf16 conv adds ~0.25 noise at pixel
+        # HIGHEST: a one-pass bf16 conv adds ~0.25 noise at pixel
         # magnitude; BRIEF bits compare pairs of these blurred values,
         # so that noise flips borderline bits (measured: ~4 bits of
-        # CPU-vs-TPU descriptor disagreement, enough to halve tracking
-        # inliers through the TH_LOW/ratio gates).
+        # device-vs-CPU descriptor disagreement, enough to halve
+        # tracking inliers through the TH_LOW/ratio gates).
         x = jax.lax.conv_general_dilated(
             x, kh, (1, 1), [(0, 0), (radius, radius)], dimension_numbers=dn,
             precision=jax.lax.Precision.HIGHEST,
@@ -163,9 +163,8 @@ def _shift_blur_mats(sigma: float = 2.0, radius: int = 3):
     with mode="edge").  The bilinear shift is S(d) = w-*S- + w0*I +
     w+*S+ per axis, so shift-then-blur per axis is the same weighted
     combination of these three static matrices — which turns the whole
-    shift+blur+normalize stage into 6 static [32,32]x[32,N*32] MXU
-    matmuls instead of padded-slice VPU passes + a batched conv
-    (measured 2.3 ms -> ~0.8 ms at N=4000 on chip)."""
+    shift+blur+normalize stage into 6 static [32,32]x[32,N*32]
+    matmuls instead of padded-slice passes + a batched conv."""
     import numpy as np
 
     from ..ops.image import _gaussian_taps
@@ -217,8 +216,8 @@ def extract_orb_with_tiles(image: jnp.ndarray, cfg: OrbConfig):
     pyramid level) so the stereo matcher can reuse them for SAD.
 
     Detection runs per pyramid level; description is batched over ALL
-    levels through a vertically-stacked pyramid atlas, so the patch DMA
-    and the BRIEF one-hot matmuls launch once per image regardless of
+    levels through a vertically-stacked pyramid atlas, so the patch
+    gather and the BRIEF sampling run once per image regardless of
     n_levels.
     """
     from ..ops.image import pyramid_atlas
@@ -278,7 +277,7 @@ def extract_orb(image: jnp.ndarray, cfg: OrbConfig) -> FrameFeatures:
 
 def extract_orb_stereo(img_left: jnp.ndarray, img_right: jnp.ndarray, cfg: OrbConfig):
     """Joint extraction for a stereo pair: detection per image/level, but
-    ONE stacked atlas + ONE patch-DMA launch + ONE set of BRIEF matmuls
+    ONE stacked atlas + one patch gather per image + ONE BRIEF pass
     for both images (the reference parallelizes L/R with two pthreads;
     here both feed the same device kernels).
 
@@ -314,9 +313,8 @@ def extract_orb_stereo(img_left: jnp.ndarray, img_right: jnp.ndarray, cfg: OrbCo
         )
         atlases.append(atlas)
 
-    # Two DMA launches (one per image atlas; the scalar-prefetch SMEM
-    # budget caps keypoints per launch anyway) but ONE orientation/
-    # blur/BRIEF pass over the concatenated tiles.
+    # One tile gather per image atlas, then ONE orientation/blur/BRIEF
+    # pass over the concatenated tiles.
     tiles_raw = jnp.concatenate(
         [
             gather_patch_tiles(atlases[0], per_image[0][1]),

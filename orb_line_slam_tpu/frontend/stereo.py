@@ -1,10 +1,10 @@
 """Stereo matching: row-band Hamming search + SAD sub-pixel refinement.
 
-TPU-native rebuild of Frame::ComputeStereoMatches (src/Frame.cc,
+Static-shape JAX rebuild of Frame::ComputeStereoMatches (src/Frame.cc,
 SURVEY.md §2.1 row 5, §3.2 "hot loop 3").  The reference loops over
 left features, scanning row-compatible right candidates; here the whole
-search is one masked [N, N] Hamming matrix (an int8 MXU matmul) and the
-SAD refinement is a batched Pallas window gather over the right pyramid
+search is one masked [N, N] Hamming matrix (an int8 matmul) and the
+SAD refinement is a batched window gather over the right pyramid
 atlas:
 
   1. candidate mask = same row band (radius 2*scale of the right
@@ -61,13 +61,13 @@ class StereoMatch(NamedTuple):
 def _gather_window(atlas, cx, cy, half_w, extra=0):
     """Gather [N, 2h+1, 2h+1+2*extra] windows at float centers.
 
-    Fast path: one Pallas DMA tile (32x32, integer-aligned) per
-    keypoint, then a 4-term bilinear blend of shifted tile views (pure
-    VPU) — replaces the 1M-element scalar gather of bilinear_sample.
+    One 32x32 integer-aligned tile per keypoint, then a 4-term bilinear
+    blend of shifted tile views (elementwise) — replaces the
+    1M-element gather of bilinear_sample.
     The tile center convention (keypoint at (15, 15)) caps the window at
     half_w + extra <= 10, which covers the 11x21 SAD strip.
     """
-    from ..ops.pallas_patches import gather_patch_tiles
+    from ..ops.brief import gather_patch_tiles
 
     assert half_w + extra <= 10
     xi = jnp.floor(cx)

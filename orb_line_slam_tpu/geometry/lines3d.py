@@ -14,7 +14,10 @@ All functions are batched jax.numpy.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
+
+_HI = jax.lax.Precision.HIGHEST  # pose geometry: full f32
 
 from .se3 import hat, so3_exp
 
@@ -51,7 +54,7 @@ def orthonormal_retract(U: jnp.ndarray, w: jnp.ndarray, xi: jnp.ndarray):
     xi: (..., 4) = [theta (3), phi (1)]."""
     theta = xi[..., :3]
     phi = xi[..., 3]
-    U2 = U @ so3_exp(theta)
+    U2 = jnp.matmul(U, so3_exp(theta), precision=_HI)
     c = jnp.cos(phi)
     s = jnp.sin(phi)
     w1 = c * w[..., 0] - s * w[..., 1]
@@ -63,8 +66,8 @@ def pluecker_transform(Rcw: jnp.ndarray, tcw: jnp.ndarray,
                        n_w: jnp.ndarray, v_w: jnp.ndarray):
     """World->camera Plücker transform:
     n_c = R n_w + [t]x R v_w,  v_c = R v_w."""
-    Rv = jnp.einsum("...ij,...j->...i", Rcw, v_w)
-    Rn = jnp.einsum("...ij,...j->...i", Rcw, n_w)
+    Rv = jnp.einsum("...ij,...j->...i", Rcw, v_w, precision=_HI)
+    Rn = jnp.einsum("...ij,...j->...i", Rcw, n_w, precision=_HI)
     n_c = Rn + jnp.cross(tcw, Rv)
     return n_c, Rv
 

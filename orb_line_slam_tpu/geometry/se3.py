@@ -1,6 +1,6 @@
 """SO3/SE3 tangent-space operations (pure jax.numpy, batched-friendly).
 
-TPU-native replacement for the reference's g2o SE3Quat manifold
+Static-shape JAX replacement for the reference's g2o SE3Quat manifold
 (reference: Thirdparty/g2o/g2o/types/se3quat.h, used throughout
 src/Optimizer.cc — see SURVEY.md §2.2).  All functions are elementwise
 over leading batch dims and safe under jit/vmap/grad.
@@ -18,10 +18,11 @@ import jax
 import jax.numpy as jnp
 
 _EPS = 1e-8
-# Geometry matmuls are K=3 contractions: HIGHEST costs nothing on the
-# VPU, while TPU's default bf16 rounding injects ~0.4% into every pose
-# transform (measured 3 cm mean error on 30 m points — the r4 13x
-# TPU-vs-CPU drift gap's root cause, tools/exp_numerics.py).
+# Geometry matmuls are K=3 contractions: HIGHEST costs nothing, while
+# a one-pass bf16 default injects ~0.4% into every pose transform
+# (measured 3 cm mean error on 30 m points — the root cause of an
+# earlier 13x device-vs-CPU drift gap, tools/exp_numerics.py); TF32 on
+# the GPU would inject ~0.05%.
 _HI = jax.lax.Precision.HIGHEST
 
 

@@ -1,6 +1,6 @@
 """Sim3 similarity-transform manifold (scale + SE3), batched jax.numpy.
 
-TPU-native replacement for g2o's Sim3 type (reference:
+Static-shape JAX replacement for g2o's Sim3 type (reference:
 Thirdparty/g2o/g2o/types/sim3.h, used by src/Optimizer.cc
 OptimizeEssentialGraph / OptimizeSim3 and src/Sim3Solver.cc — SURVEY.md
 §2.1 rows 13, 15).

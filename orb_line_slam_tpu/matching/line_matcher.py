@@ -3,8 +3,8 @@
 Rebuilds the reference's LineMatcher / BinaryDescriptorMatcher usage
 (src/LineMatcher.cc `[K]`, descriptor.hpp:1019-1090 — SURVEY.md §2.1
 row 12): frame↔frame knn matching with angle/overlap/endpoint gates and
-projection search of 3D map lines into the current frame.  Same MXU
-Hamming kernels as points.
+projection search of 3D map lines into the current frame.  Same
+Hamming matmuls as points.
 """
 
 from __future__ import annotations

@@ -1,10 +1,10 @@
-"""Point matching as dense masked Hamming matrices on the MXU.
+"""Point matching as dense masked Hamming matrices.
 
-TPU-native rebuild of ORBmatcher (src/ORBmatcher.cc, SURVEY.md §2.1
+Static-shape JAX rebuild of ORBmatcher (src/ORBmatcher.cc, SURVEY.md §2.1
 row 11).  The reference accelerates candidate lookup with a 64x48
 feature grid and BoW FeatureVector node pruning — CPU tricks to shrink
-the candidate set.  On TPU the full [M, N] descriptor-distance matrix
-is one int8 matmul, so every search variant becomes: distance matrix
+the candidate set.  On an accelerator the full [M, N] descriptor-distance
+matrix is one int8 matmul, so every search variant becomes: distance matrix
 + geometric validity mask + (best, second-best) selection + ratio test
 + rotation-consistency histogram.  Thresholds mirror the reference:
 TH_LOW=50, TH_HIGH=100, ratio 0.6-0.9, 30-bin rotation histogram with

@@ -1,6 +1,6 @@
 """Oriented BRIEF-256: intensity-centroid orientation + rotated pattern.
 
-TPU-native replacement for ORBextractor's IC_Angle +
+Batched replacement for ORBextractor's IC_Angle +
 computeOrbDescriptor (src/ORBextractor.cc, SURVEY.md §2.1 row 9 and
 §3.2 "hot loop 1").  All keypoints are processed as one batched gather:
 patch reads become [N, P, P] advanced-indexing gathers, the descriptor
@@ -36,7 +36,7 @@ def brief_pattern() -> np.ndarray:
     """[256, 4] float32 rows (x1, y1, x2, y2), deterministic.
 
     Test points are clipped to EUCLIDEAN radius 14 so that any in-plane
-    rotation keeps every sample inside the 32x32 DMA tile (keypoint at
+    rotation keeps every sample inside the 32x32 tile (keypoint at
     (15, 15)) — axis-wise clipping would let rotated samples spill past
     the tile edge and corrupt descriptors of rotated keypoints."""
     rng = np.random.default_rng(0x0B51EF)
@@ -116,18 +116,32 @@ def brief_descriptors(
 
 
 # ---------------------------------------------------------------------------
-# Tile-based fast path (Pallas DMA tiles + MXU one-hot sampling).
+# Tile-based path.
 #
-# The keypoint sits at tile index (15, 15) of a 32x32 tile
-# (ops/pallas_patches.py).  BRIEF sampling becomes, per 12-degree
-# quantized angle bin (OpenCV ORB quantizes to 30 bins too), one
-# [N, 1024] x [1024, 512] one-hot matmul — MXU work instead of the
-# 1M-element gather that dominates the XLA lowering.
+# Each keypoint gets one 32x32 tile with the keypoint at tile index
+# (15, 15) (gather_patch_tiles).  Orientation and BRIEF then read the
+# tile only: BRIEF steering is quantized to 30 angle bins of 12 degrees
+# (OpenCV ORB quantizes to 30 bins too), so each bin's rotated test
+# points are a fixed table of flat tile indices.
 # ---------------------------------------------------------------------------
 
 N_ANGLE_BINS = 30
 TILE = 32
 TILE_C = 15  # keypoint index within the tile
+
+
+def gather_patch_tiles(img: jnp.ndarray, xy: jnp.ndarray) -> jnp.ndarray:
+    """[N, 32, 32] float32 tiles of img; tile[15, 15] is the keypoint
+    pixel, and tiles that would cross the image border are shifted
+    inside it (clamped).  xy: int32 [N, 2] (x, y)."""
+    with jax.named_scope("patch_gather"):
+        h, w = img.shape
+        x0 = jnp.clip(xy[:, 0] - TILE_C, 0, w - TILE)
+        y0 = jnp.clip(xy[:, 1] - TILE_C, 0, h - TILE)
+        d = jnp.arange(TILE)
+        ys = y0[:, None, None] + d[None, :, None]
+        xs = x0[:, None, None] + d[None, None, :]
+        return img.astype(jnp.float32)[ys, xs]
 
 
 @functools.lru_cache()
@@ -148,27 +162,10 @@ def _rotated_flat_indices() -> np.ndarray:
     return out
 
 
-@functools.lru_cache()
-def _diff_tables() -> np.ndarray:
-    """int8 [N_ANGLE_BINS, 2*1024, 256] signed sampling-difference
-    matrices for the fixed-point BRIEF matmul: for bin b and pair j,
-    column j holds +1 at p2's flat tile index and -1 at p1's (net 0 if
-    they coincide).  The first 1024 rows are scaled by 64 (the hi
-    fixed-point plane), the last 1024 by 1 (the lo plane), so that
-    [hi, lo] @ D == 64*(hi@D1) + lo@D1 == tf@D1 exactly in int32."""
-    idx = _rotated_flat_indices()
-    base = np.zeros((N_ANGLE_BINS, TILE * TILE, 256), np.int8)
-    for b in range(N_ANGLE_BINS):
-        for j in range(256):
-            base[b, idx[b, 256 + j], j] += 1
-            base[b, idx[b, j], j] -= 1
-    return np.concatenate([base * np.int8(64), base], axis=1)
-
-
-# Fixed-point scale for tile intensities: 4 fractional bits.  Both the
-# TPU matmul path and the CPU gather path quantize identically, making
-# descriptors BIT-IDENTICAL across platforms (the r4 3-term bf16 split
-# still left ~1e-5 of sampling error and occasional bit flips vs CPU).
+# Fixed-point scale for tile intensities: 4 fractional bits.  Sampling
+# and orientation both quantize the tile to round(tile * FIXED_SCALE),
+# so descriptors are exact integer arithmetic, bit-identical on every
+# backend.
 FIXED_SCALE = 16.0
 
 
@@ -198,8 +195,8 @@ IC_MIN_OFFSET_PX = 0.5
 @functools.lru_cache()
 def _ic_weight_table() -> np.ndarray:
     """int8 [1024, 4] moment weights over the full 32x32 tile (disk
-    mask x {u, v, 1}, zero outside the 31x31 patch; 4th column pads to
-    an MXU-friendly width).  Entries are in [-15, 15] so the moments
+    mask x {u, v, 1}, zero outside the 31x31 patch; the 4th column is
+    zero padding).  Entries are in [-15, 15] so the moments
     are EXACT int32 under the fixed-point planes."""
     mask = circular_mask()  # [31, 31]
     d = np.arange(-HALF_PATCH, HALF_PATCH + 1, dtype=np.float32)
@@ -215,10 +212,9 @@ def ic_angle_from_tiles(tiles: jnp.ndarray) -> jnp.ndarray:
 
     Fixed-point int8 matmul: moments come out EXACT (scaled by
     FIXED_SCALE, which cancels in both arctan2 and the offset/m00
-    ratio), so CPU and TPU agree bit-for-bit — the f32 matvec this
-    replaces went through the TPU's approximate default f32 matmul
-    precision and diverged from CPU at ~1e-3, enough to flip angle
-    bins.  Also ~2x faster (int8 MXU vs three f32 matvecs).
+    ratio), so every backend agrees bit-for-bit — an f32 matvec under a
+    reduced default matmul precision diverges from the CPU at ~1e-3,
+    enough to flip angle bins.
     Weak centroids snap to upright (see IC_MIN_OFFSET_PX)."""
     n = tiles.shape[0]
     hi, lo = _fixed_planes(tiles.reshape(n, -1))
@@ -237,34 +233,14 @@ def ic_angle_from_tiles(tiles: jnp.ndarray) -> jnp.ndarray:
 def brief_descriptors_from_tiles(
     tiles_blur: jnp.ndarray, angles: jnp.ndarray
 ) -> jnp.ndarray:
-    """Rotated BRIEF-256 from blurred-image tiles [N, 32, 32]."""
+    """Rotated BRIEF-256 from blurred-image tiles [N, 32, 32]: one
+    gather of the 512 quantized test points of each keypoint's angle
+    bin, compared in fixed point (exact, so every backend gives the
+    same bits)."""
     n = tiles_blur.shape[0]
     bins = quantize_angle(angles)
-    flat = tiles_blur.reshape(n, -1)
-    if jax.default_backend() == "tpu":
-        # Fixed-point int8 matmul, EXACT (see _diff_tables): the sampled
-        # pair difference comes out as an int32 with zero rounding, so
-        # the bit is deterministic and identical to the CPU gather path.
-        # Bin selection is folded into ONE block-diagonal matmul
-        # ([N, 30*2048] x [30*2048, 256]) instead of 30 masked matmuls —
-        # measured 1.8 ms vs 3.1 ms for the r4 three-term bf16 split at
-        # N=4000 on chip.
-        hi, lo = _fixed_planes(flat)
-        X = jnp.concatenate([hi, lo], axis=1)  # [N, 2048]
-        sel = bins[:, None] == jnp.arange(N_ANGLE_BINS)[None, :]
-        Xb = jnp.where(sel[:, :, None], X[:, None, :], jnp.int8(0))
-        Dt = jnp.asarray(_diff_tables())  # [30, 2048, 256]
-        diff = jax.lax.dot_general(
-            Xb.reshape(n, N_ANGLE_BINS * 2 * TILE * TILE),
-            Dt.reshape(N_ANGLE_BINS * 2 * TILE * TILE, 256),
-            (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        )
-    else:
-        # CPU: identical math via per-keypoint index gather on the same
-        # fixed-point quantization.
-        tf = jnp.round(flat * FIXED_SCALE).astype(jnp.int32)
-        idx = jnp.asarray(_rotated_flat_indices())[bins]  # [N, 512]
-        vals = jnp.take_along_axis(tf, idx, axis=1)
-        diff = vals[:, 256:] - vals[:, :256]
+    tf = jnp.round(tiles_blur.reshape(n, -1) * FIXED_SCALE).astype(jnp.int32)
+    idx = jnp.asarray(_rotated_flat_indices())[bins]  # [N, 512]
+    vals = jnp.take_along_axis(tf, idx, axis=1)
+    diff = vals[:, 256:] - vals[:, :256]
     return pack_bits((diff > 0).astype(jnp.uint8))

@@ -1,6 +1,6 @@
 """FAST-9/16 corner detection as dense, data-parallel stencils.
 
-TPU-native replacement for the per-cell cv::FAST calls inside
+Static-shape JAX replacement for the per-cell cv::FAST calls inside
 ORBextractor::ComputeKeyPointsOctTree (src/ORBextractor.cc, SURVEY.md
 §2.1 row 9 and §3.2 "hot loop 1").  Instead of the reference's
 sequential per-cell detection + octree redistribution, we compute a

@@ -1,11 +1,11 @@
-"""Hamming distance on packed 256-bit binary descriptors, MXU-formulated.
+"""Hamming distance on packed 256-bit binary descriptors, as int8 matmuls.
 
-TPU-native replacement for the reference's bit-twiddling popcount
+Static-shape JAX replacement for the reference's bit-twiddling popcount
 ``ORBmatcher::DescriptorDistance`` (src/ORBmatcher.cc, SURVEY.md §2.1
 row 11) and the brute-force loops of ``BinaryDescriptorMatcher``.
 
 Two formulations:
-  * ``hamming_matrix`` — the MXU path: unpack each 32-byte descriptor to
+  * ``hamming_matrix`` — the matmul path: unpack each 32-byte descriptor to
     a ±1 int8 vector of length 256; then
     ``dist = (256 - a @ b.T) / 2``.  One [N,256]x[256,M] int8 matmul,
     exactly what the systolic array is built for.
@@ -59,8 +59,8 @@ def hamming_matrix(desc_a: jnp.ndarray, desc_b: jnp.ndarray) -> jnp.ndarray:
       int32[N, M] Hamming distances in [0, 256].
 
     Uses the ±1 dot-product identity: with a,b ∈ {-1,+1}^256,
-    a·b = 256 - 2*hamming, so hamming = (256 - a·b)/2.  The int8 matmul
-    lands on the MXU; distance of all-padding descriptors is still valid
+    a·b = 256 - 2*hamming, so hamming = (256 - a·b)/2, exact in int32;
+    distance of all-padding descriptors is still valid
     (0 vs 0 -> 0), so callers mask by validity separately.
     """
     a = to_pm1(desc_a)
@@ -94,10 +94,9 @@ def knn2(dist: jnp.ndarray, valid_cols: jnp.ndarray | None = None):
     if valid_cols is not None:
         big = jnp.int32(512)
         dist = jnp.where(valid_cols, dist, big)
-    # Two-pass min/argmin instead of lax.top_k(k=2): top_k lowers to a
-    # per-row sort network on TPU and measures ~3x slower than three
-    # fused reduction passes at [4096, 2048] (2.7 ms vs 0.84 ms on
-    # chip).  Semantics are identical: argmin and top_k both break
+    # Two-pass min/argmin instead of lax.top_k(k=2): fused reduction
+    # passes instead of a per-row sort (which of the two is faster on
+    # the GPU is not measured yet).  Semantics are identical: argmin and top_k both break
     # value ties toward the lower index, and masking out the winning
     # INDEX (not value) before the second pass reproduces top_k's
     # second element exactly.

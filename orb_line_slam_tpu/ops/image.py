@@ -2,7 +2,7 @@
 
 Replaces the reference's OpenCV image plumbing used by ORBextractor
 (ComputePyramid, GaussianBlur — src/ORBextractor.cc, SURVEY.md §2.1
-row 9) with static-shape jax.numpy that XLA fuses well on TPU.
+row 9) with static-shape jax.numpy that XLA fuses well.
 """
 
 from __future__ import annotations
@@ -41,35 +41,27 @@ def _banded(n: int, taps: tuple) -> np.ndarray:
     return M
 
 
-def separable_filter(img: jnp.ndarray, taps_y: tuple, taps_x: tuple,
-                     precision=None) -> jnp.ndarray:
-    """Separable FIR filter of [..., H, W] as two banded matmuls.
-
-    TPU note: a [1,1,H,W] single-channel lax.conv lowers catastrophically
-    on this chip (~8-18 ms per 376x1241 conv measured through XLA — the
-    MXU sees channel depth 1); the same filter as [H,H] @ img @ [W,W]^T
-    banded matmuls runs in the hundreds of microseconds and fuses into
-    surrounding programs.  Default f32 HIGHEST (6-pass) keeps error
-    ~1e-4 at pixel magnitude (the BRIEF-bit requirement).  Consumers
-    whose downstream thresholds are coarse (the line detector's edge
-    mask / coherence fields) pass HIGH (3-pass, ~2x faster, error still
-    ~1e-4 absolute at 255 magnitude — far below every gate and small
-    enough to preserve CPU/TPU parity; bf16 DEFAULT is NOT safe, it
-    flips border pixels by ~1)."""
+def separable_filter(img: jnp.ndarray, taps_y: tuple, taps_x: tuple) -> jnp.ndarray:
+    """Separable FIR filter of [..., H, W] as two banded matmuls,
+    [H,H] @ img @ [W,W]^T (whether a convolution is faster on the GPU
+    is not measured yet: ROADMAP D9).  Always HIGHEST (full f32): it
+    keeps the error ~1e-4 at pixel magnitude (the BRIEF-bit
+    requirement), and even the line detector, whose outputs only feed
+    coarse thresholds, loses 6% of its lines to TF32 (GPU parity run);
+    a one-pass bf16 product flips border pixels by ~1."""
     h, w = img.shape[-2], img.shape[-1]
     My = jnp.asarray(_banded(h, taps_y))
     Mx = jnp.asarray(_banded(w, taps_x))
-    hp = jax.lax.Precision.HIGHEST if precision is None else precision
+    hp = jax.lax.Precision.HIGHEST
     x = jnp.matmul(My, img, precision=hp)
     return jnp.matmul(x, Mx.T, precision=hp)
 
 
-def gaussian_blur(img: jnp.ndarray, sigma: float = 2.0, radius: int = 3,
-                  precision=None) -> jnp.ndarray:
+def gaussian_blur(img: jnp.ndarray, sigma: float = 2.0, radius: int = 3) -> jnp.ndarray:
     """Separable Gaussian blur of a [..., H, W] float image (ORBextractor
     uses 7x7 sigma=2 before describing — same defaults here)."""
     taps = _gaussian_taps(sigma, radius)
-    return separable_filter(img, taps, taps, precision=precision)
+    return separable_filter(img, taps, taps)
 
 
 @functools.lru_cache(maxsize=256)
@@ -91,10 +83,10 @@ def resize_bilinear(img: jnp.ndarray, new_hw: tuple[int, int]) -> jnp.ndarray:
     """Bilinear (anti-aliased) resize of a 2D image (pyramid levels) as
     two interpolation matmuls in f32 HIGHEST.
 
-    TPU note: jax.image.resize lowers through default-precision (bf16)
-    matmuls on this chip, which perturbs pyramid pixels by ~0.5 — enough
-    to flip borderline BRIEF bits and break CPU/TPU descriptor parity
-    (the round-1 divergence class; guarded by tests/test_tpu_parity.py)."""
+    jax.image.resize can lower through default-precision (bf16 or TF32)
+    matmuls on an accelerator, which perturbs pyramid pixels by up to
+    ~0.5 — enough to flip borderline BRIEF bits and break device/CPU
+    descriptor parity (guarded by tests/test_gpu_parity.py)."""
     h2, w2 = new_hw
     h1, w1 = img.shape
     My = jnp.asarray(_resize_matrix(h2, h1))
@@ -121,15 +113,15 @@ def build_pyramid(img: jnp.ndarray, n_levels: int, scale: float) -> list[jnp.nda
     return levels
 
 
-def sobel_gradients(img: jnp.ndarray, precision=None):
+def sobel_gradients(img: jnp.ndarray):
     """Sobel dx, dy of a [..., H, W] float image (line detection / LBD
     front-end), as banded matmuls — see separable_filter."""
     smooth = (1.0, 2.0, 1.0)
     # Tap order matches the previous lax.conv kernels (verified
     # numerically): (1, 0, -1) reproduces the old [-1, 0, 1] Sobel rows.
     diff = (1.0, 0.0, -1.0)
-    gx = separable_filter(img, smooth, diff, precision=precision)
-    gy = separable_filter(img, diff, smooth, precision=precision)
+    gx = separable_filter(img, smooth, diff)
+    gy = separable_filter(img, diff, smooth)
     return gx, gy
 
 
@@ -142,9 +134,8 @@ def bilinear_sample(img: jnp.ndarray, xy: jnp.ndarray) -> jnp.ndarray:
     with ONE take, so co-located fields (edge mask + angle fields,
     gx + gy) cost one gather instead of one per field.
 
-    Indexes the flattened image with a single fused index (y*w + x):
-    1-D `take` lowers to a fast TPU gather, while the equivalent 2-D
-    advanced indexing lowers ~4x slower (measured on v5e)."""
+    Indexes the flattened image with a single fused index (y*w + x),
+    one 1-D `take` instead of 2-D advanced indexing."""
     channels = img.ndim == 3
     h, w = img.shape[0], img.shape[1]
     flat = img.reshape(h * w, -1) if channels else img.reshape(-1)
@@ -175,8 +166,8 @@ def bilinear_sample(img: jnp.ndarray, xy: jnp.ndarray) -> jnp.ndarray:
 
 def nearest_sample(img: jnp.ndarray, xy: jnp.ndarray) -> jnp.ndarray:
     """Nearest-neighbour sample (used by BRIEF's rotated pattern, which
-    OpenCV rounds with cvRound).  Flat-index gather: see
-    bilinear_sample for the TPU lowering rationale."""
+    OpenCV rounds with cvRound).  Flat-index gather, as
+    bilinear_sample."""
     h, w = img.shape
     x = jnp.clip(jnp.round(xy[..., 0]).astype(jnp.int32), 0, w - 1)
     y = jnp.clip(jnp.round(xy[..., 1]).astype(jnp.int32), 0, h - 1)

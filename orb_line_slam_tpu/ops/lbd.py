@@ -5,7 +5,7 @@ Replaces the vendored BinaryDescriptor of the line_descriptor module
 at /usr/include/opencv4/opencv2/line_descriptor/descriptor.hpp:195-290
 — SURVEY.md §2.2): band-based gradient statistics along the line
 support region, binarized to a 256-bit string matched by Hamming
-distance exactly like ORB descriptors (shared MXU kernels).
+distance exactly like ORB descriptors (shared Hamming matmuls).
 
 Construction (following Zhang & Koch's LBD):
   - sample S points along the segment; at each, sample the gradient in

@@ -1,4 +1,4 @@
-"""TPU-native line-segment detection as batched dense stencils.
+"""Line-segment detection as batched dense stencils.
 
 Replaces the vendored LSD detector (Thirdparty/line_descriptor
 LSDDetector — SURVEY.md §2.2, §7.2 hard-part #1).  LSD's greedy
@@ -11,7 +11,7 @@ same contract (oriented segments with endpoints, angle, response):
      its magnitude is high exactly where neighbouring edge pixels share
      one line direction (texture cancels, straight edges add).  This
      replaces an earlier 12-direction rolled correlation that cost
-     ~200 full-image ops (~50 ms/image on v5e) with two blurs (~1 ms).
+     ~200 full-image ops with two blurs.
   3. Candidate centers: per-cell top-K of the score
      (reusing the keypoint distribution machinery).
   4. Endpoint walk, batched: for each candidate, sample the fused
@@ -77,8 +77,7 @@ def detect_lines(
     grads: optional precomputed (gx, gy) Sobel pair — lets the caller
     share one gradient pass with the LBD stage."""
     x = img.astype(jnp.float32)
-    _HI = jax.lax.Precision.HIGH  # coarse-threshold path: 3-pass f32
-    gx, gy = sobel_gradients(x, precision=_HI) if grads is None else grads
+    gx, gy = sobel_gradients(x) if grads is None else grads
     mag2 = gx * gx + gy * gy
     # Zero the border: stencil zero-padding fabricates huge step edges there.
     hh, ww = x.shape
@@ -100,8 +99,8 @@ def detect_lines(
     # the edge density times the local angular coherence — texture and
     # corners cancel, straight supported edges score ~0.2 (the 1D
     # Gaussian center weight) regardless of direction.
-    c2b = gaussian_blur(c2, sigma=2.0, radius=4, precision=_HI)
-    s2b = gaussian_blur(s2, sigma=2.0, radius=4, precision=_HI)
+    c2b = gaussian_blur(c2, sigma=2.0, radius=4)
+    s2b = gaussian_blur(s2, sigma=2.0, radius=4)
     score = edge * jnp.sqrt(c2b * c2b + s2b * s2b)
 
     h, w = x.shape

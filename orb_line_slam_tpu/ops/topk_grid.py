@@ -1,6 +1,6 @@
 """Spatially-distributed keypoint selection: per-cell top-K + global top-N.
 
-TPU-native replacement for ORBextractor::DistributeOctTree (the
+Static-shape JAX replacement for ORBextractor::DistributeOctTree (the
 sequential quadtree in src/ORBextractor.cc, SURVEY.md §2.1 row 9).  The
 octree's goal is spatial uniformity under a feature budget; we get the
 same effect with static shapes: partition the score map into fixed

@@ -1,10 +1,9 @@
 """Multi-host (multi-process) runtime scaffolding.
 
-The reference is a single-OS-process system (SURVEY.md §2.4); the
-TPU-native build is required to scale the distributed bundle adjuster
-across hosts (BASELINE config #5: keyframe/map-block sharding over >=2
-hosts at >=0.7 efficiency).  Real multi-host TPU hardware is not
-available in this environment, so this module provides the
+The reference is a single-OS-process system (SURVEY.md §2.4); this
+module scales the distributed bundle adjuster across hosts (BASELINE
+config #5: keyframe/map-block sharding over >=2 hosts).  Multi-host
+hardware is not available to the tests, so this module provides the
 process-spanning entry path — ``jax.distributed.initialize`` plus a
 global-mesh constructor and host-data sharding helpers — and the
 2-process CPU test (tests/test_multihost_ba.py) proves the sharded GBA
@@ -32,8 +31,8 @@ def initialize(
     """Join (or start, for process 0) a multi-process JAX runtime.
 
     local_device_count forces N virtual CPU devices per process —
-    the CPU-only testing path; leave None on real TPU hosts where the
-    PJRT runtime reports the local chips."""
+    the CPU-only testing path; leave None on accelerator hosts where
+    the PJRT runtime reports the local devices."""
     if local_device_count is not None:
         os.environ["JAX_PLATFORMS"] = "cpu"
         flags = os.environ.get("XLA_FLAGS", "")
@@ -51,7 +50,7 @@ def initialize(
 
 
 def global_mesh(axis_name: str = "dp"):
-    """1-D mesh over every device of every process (ICI+DCN)."""
+    """1-D mesh over every device of every process."""
     import jax
     import numpy as np
     from jax.sharding import Mesh

@@ -1,12 +1,13 @@
 """Distributed bundle adjustment: landmark-sharded Schur reduction.
 
 The reference has no distributed anything (single process + pthreads,
-SURVEY.md §2.4); this module is the TPU-native scaling path demanded by
+SURVEY.md §2.4); this module is the multi-device scaling path demanded by
 BASELINE.json:5/11: keyframes are replicated, landmarks and their
 observations are sharded over a `jax.sharding.Mesh` axis, and each
 device computes the partial camera Hessian + Schur contribution of its
 landmark block.  One `psum` over the mesh assembles the reduced camera
-system (the Hessian rides ICI, never the raw observations); every
+system (the Hessian crosses the interconnect, never the raw
+observations); every
 device solves the small replicated camera system and back-substitutes
 its own landmark shard locally.
 
@@ -22,6 +23,12 @@ import functools
 
 import jax
 import jax.numpy as jnp
+
+# Normal equations in full f32: a reduced matmul precision (TF32 on the
+# GPU) carries ~1e-3 relative error into the Hessian and the gradient,
+# which moves the solution.
+_HI = jax.lax.Precision.HIGHEST
+
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..backend.assembly import inv33
@@ -61,11 +68,11 @@ def _ba_shard_body(
         c = jnp.sum(r * r, axis=-1) * info
         w = info * huber_weight(c, CHI2_STEREO) * jnp.where(obs_valid, 1.0, 0.0)
 
-        JcT_Jc = jnp.einsum("odi,odj,o->oij", Jc, Jc, w)
-        JpT_Jp = jnp.einsum("odi,odj,o->oij", Jp, Jp, w)
-        JcT_Jp = jnp.einsum("odi,odj,o->oij", Jc, Jp, w)
-        gc_o = jnp.einsum("odi,od,o->oi", Jc, r, w)
-        gp_o = jnp.einsum("odi,od,o->oi", Jp, r, w)
+        JcT_Jc = jnp.einsum("odi,odj,o->oij", Jc, Jc, w, precision=_HI)
+        JpT_Jp = jnp.einsum("odi,odj,o->oij", Jp, Jp, w, precision=_HI)
+        JcT_Jp = jnp.einsum("odi,odj,o->oij", Jc, Jp, w, precision=_HI)
+        gc_o = jnp.einsum("odi,od,o->oi", Jc, r, w, precision=_HI)
+        gp_o = jnp.einsum("odi,od,o->oi", Jp, r, w, precision=_HI)
 
         Hcc = jnp.zeros((C, 6, 6)).at[obs_cam].add(JcT_Jc)
         Hpp = jnp.zeros((Pl, 3, 3)).at[obs_lm_local].add(JpT_Jp)
@@ -82,7 +89,7 @@ def _ba_shard_body(
         Hpp = Hpp + lam * Hpp * jnp.eye(3)
         Hpp = Hpp + (1e-6 + (~point_valid[:, None, None]) * 1.0) * jnp.eye(3)
         V = inv33(Hpp)
-        Wp = jnp.einsum("pcij,pjk->pcik", B, V)
+        Wp = jnp.einsum("pcij,pjk->pcik", B, V, precision=_HI)
 
         A1 = Wp.transpose(1, 2, 0, 3).reshape(C * 6, Pl * 3)
         A2 = B.transpose(1, 2, 0, 3).reshape(C * 6, Pl * 3)
@@ -90,8 +97,10 @@ def _ba_shard_body(
         Hcc_full = (
             jnp.zeros((C, 6, C, 6)).at[idx, :, idx, :].set(Hcc).reshape(C * 6, C * 6)
         )
-        S_local = Hcc_full - jnp.dot(A1, A2.T, preferred_element_type=jnp.float32)
-        rhs_local = -(gc - jnp.einsum("pcik,pk->ci", Wp, gp)).reshape(C * 6)
+        S_local = Hcc_full - jnp.dot(
+            A1, A2.T, preferred_element_type=jnp.float32, precision=_HI
+        )
+        rhs_local = -(gc - jnp.einsum("pcik,pk->ci", Wp, gp, precision=_HI)).reshape(C * 6)
 
         # The ONLY cross-device communication: reduce the camera system.
         S = jax.lax.psum(S_local, axis_name)
@@ -103,7 +112,7 @@ def _ba_shard_body(
         rhs = rhs * m
         dc = jnp.linalg.solve(S, rhs).reshape(C, 6)
 
-        dp = -jnp.einsum("pij,pj->pi", V, gp + jnp.einsum("pcij,ci->pj", B, dc))
+        dp = -jnp.einsum("pij,pj->pi", V, gp + jnp.einsum("pcij,ci->pj", B, dc), precision=_HI)
         dp = dp * point_valid[:, None]
 
         dR, dt = se3_exp(dc * free_c)
@@ -136,7 +145,8 @@ def _cg_shard_body(
     [C,6] vector (plus one [C,6,6]+[C,6] psum per LM iteration for the
     diagonal blocks/gradient), so the wire traffic per iteration is
     O(C) regardless of landmark count.  This is the 'reduce camera
-    Hessian over ICI' recipe of SURVEY.md §2.4 / BASELINE.json:5."""
+    Hessian over the interconnect' recipe of SURVEY.md §2.4 /
+    BASELINE.json:5."""
     C = R.shape[0]
     Pl = points.shape[0]
     point_fn = make_point_residual_fn(cam)
@@ -164,13 +174,13 @@ def _cg_shard_body(
         if use_huber:
             w = w * huber_weight(c, CHI2_STEREO)
 
-        JcT_Jc = jnp.einsum("odi,odj,o->oij", Jc, Jc, w)
-        JpT_Jp = jnp.einsum("odi,odj,o->oij", Jp, Jp, w)
-        JcT_Jp = jnp.einsum("odi,odj,o->oij", Jc, Jp, w)
-        gc_o = jnp.einsum("odi,od,o->oi", Jc, r, w)
-        gp_o = jnp.einsum("odi,od,o->oi", Jp, r, w)
+        JcT_Jc = jnp.einsum("odi,odj,o->oij", Jc, Jc, w, precision=_HI)
+        JpT_Jp = jnp.einsum("odi,odj,o->oij", Jp, Jp, w, precision=_HI)
+        JcT_Jp = jnp.einsum("odi,odj,o->oij", Jc, Jp, w, precision=_HI)
+        gc_o = jnp.einsum("odi,od,o->oi", Jc, r, w, precision=_HI)
+        gp_o = jnp.einsum("odi,od,o->oi", Jp, r, w, precision=_HI)
 
-        # Camera blocks: local partials reduced over the mesh (ICI).
+        # Camera blocks: local partials reduced over the mesh.
         Hcc = jax.lax.psum(
             jnp.zeros((C, 6, 6)).at[obs_cam].add(JcT_Jc), axis_name
         )
@@ -185,27 +195,27 @@ def _cg_shard_body(
         V = inv33(Hpp)
 
         def bt_x(x):
-            yo = jnp.einsum("oij,oi->oj", JcT_Jp, x[obs_cam])
+            yo = jnp.einsum("oij,oi->oj", JcT_Jp, x[obs_cam], precision=_HI)
             return jnp.zeros((Pl, 3)).at[obs_lm_local].add(yo)
 
         def b_z(z):
-            uo = jnp.einsum("oij,oj->oi", JcT_Jp, z[obs_lm_local])
+            uo = jnp.einsum("oij,oj->oi", JcT_Jp, z[obs_lm_local], precision=_HI)
             return jax.lax.psum(
                 jnp.zeros((C, 6)).at[obs_cam].add(uo), axis_name
             )
 
         def s_matvec(x):
             xm = x * m[:, None]
-            hx = jnp.einsum("cij,cj->ci", Hcc, xm)
-            z = jnp.einsum("pij,pj->pi", V, bt_x(xm))
+            hx = jnp.einsum("cij,cj->ci", Hcc, xm, precision=_HI)
+            z = jnp.einsum("pij,pj->pi", V, bt_x(xm), precision=_HI)
             sx = (hx - b_z(z)) * m[:, None]
             return sx + x * (1.0 - m)[:, None]
 
-        rhs = -(gc - b_z(jnp.einsum("pij,pj->pi", V, gp))) * m[:, None]
+        rhs = -(gc - b_z(jnp.einsum("pij,pj->pi", V, gp, precision=_HI))) * m[:, None]
         Minv = jnp.linalg.inv(Hcc + 1e-6 * jnp.eye(6))
 
         def precond(v):
-            return jnp.einsum("cij,cj->ci", Minv, v * m[:, None]) * m[:, None] \
+            return jnp.einsum("cij,cj->ci", Minv, v * m[:, None], precision=_HI) * m[:, None] \
                 + v * (1.0 - m)[:, None]
 
         def cg_step(state, _):
@@ -227,7 +237,7 @@ def _cg_shard_body(
             cg_step, (x0, rhs, z0, jnp.sum(rhs * z0)), None, length=cg_iters
         )
         dc = dc * m[:, None]
-        dp = -jnp.einsum("pij,pj->pi", V, gp + bt_x(dc))
+        dp = -jnp.einsum("pij,pj->pi", V, gp + bt_x(dc), precision=_HI)
         dp = dp * point_valid[:, None]
 
         dR, dt = se3_exp(dc * free_c)

@@ -52,7 +52,7 @@ def test_warmup_covers_every_bucket_combo():
 
 def test_system_warmup_is_the_shipping_path():
     """System.warmup(block=True) must cover the same bucket ladder the
-    bench warms — the SHIPPING drivers call System.warmup (auto on TPU
+    bench warms — the SHIPPING drivers call System.warmup (auto on an accelerator
     at first track), so a System-driven run crossing the 4096-landmark
     bucket must be a cache hit (VERDICT r4 weak #4)."""
     from orb_line_slam_tpu.pipeline.system import System

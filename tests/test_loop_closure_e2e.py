@@ -65,8 +65,8 @@ def test_loop_closes_from_pixels_and_reduces_ate():
     ate_off, sysm_off = _run(poses, use_loop=False)
     assert sysm_off.n_loops_closed == 0
     # Closing the loop must never materially hurt; when the open-loop
-    # run actually drifts (TPU front-end: 0.39 m on this circuit) it
-    # must measurably help (0.39 -> 0.24 m measured on chip).  The CPU
+    # run actually drifts (0.39 m on this circuit with an earlier
+    # accelerator front-end) it must measurably help (0.39 -> 0.24 m).  The CPU
     # front-end drifts only ~0.03 m here, below the Sim3 edge's noise
     # floor, so strict improvement is only required above it.
     assert ate_loop < max(1.25 * ate_off, ate_off + 0.02), (

@@ -1,12 +1,12 @@
-"""Per-kernel CPU-vs-TPU numerics probe (drift-gap bisection).
+"""Per-kernel device-vs-CPU numerics probe (drift-gap bisection).
 
 Runs the geometry-critical kernels on the current platform with FIXED
-inputs and dumps outputs to .npz; run once under TPU and once under
+inputs and dumps outputs to .npz; run once on the GPU and once on the
 CPU, then compare:
 
-  python tools/exp_numerics.py /tmp/tpu.npz
+  python tools/exp_numerics.py /tmp/gpu.npz
   JAX_PLATFORMS=cpu python tools/exp_numerics.py /tmp/cpu.npz
-  python tools/exp_numerics.py --compare /tmp/cpu.npz /tmp/tpu.npz
+  python tools/exp_numerics.py --compare /tmp/cpu.npz /tmp/gpu.npz
 """
 import os
 import sys

@@ -3,7 +3,7 @@
 Runs the same synthetic KITTI-shaped sequence as bench.py's
 _bench_pipeline and prints the Tracker's StageTimer table — the
 per-stage ms budget that explains the full_pipeline_fps number
-(VERDICT r2 "next round" #1d).  Run on the TPU chip:
+(VERDICT r2 "next round" #1d).  Run on the GPU:
 
     python tools/profile_stages.py [n_frames] [--system]
 """
