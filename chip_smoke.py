@@ -14,8 +14,9 @@ One card, in one process:
    map, pipeline depth 2, async mapping, loop closing on) over 60 rendered
    frames; tracking must end OK with keyframes made and local BA applied;
 3. loop circuit: the pinned closed circuit of ``eval/circuit.py`` (640x320,
-   170 frames, lines on); at least one loop must close, global BA must be
-   applied, and ATE must stay within 1.5x the same run's CPU ATE.
+   170 frames, lines on), run five times; in each run at least one loop
+   must close and global BA must be applied, and the median ATE must stay
+   within 1.5x the same run's CPU ATE.
 
 With ``--four-cards``: the landmark-sharded CG global BA on a 4-card mesh
 against ``bundle_adjust_cg`` on one card (256 cameras, 65,536 landmarks,
@@ -46,10 +47,14 @@ import numpy as np  # noqa: E402
 
 # ATE of the pinned loop circuit (eval/circuit.py, run_loop_circuit(True))
 # on a host CPU (x86-64, JAX 0.9.0; 1 loop closed, 51 keyframes), measured
-# once with this code and recorded in CHANGES.md.  The card's run must
-# stay within CIRCUIT_ATE_FACTOR of it.
+# once with this code and recorded in PERF.md.  The circuit's ATE is
+# chaotic (scatter-adds on the GPU sum in a varying order): single runs
+# on the H100 have read 0.60x-2.31x of it, so the gate takes the median
+# of CIRCUIT_RUNS runs and guards against gross failures of loop
+# correction.  Precision faults are the parity phase's to catch.
 CPU_CIRCUIT_ATE_M = 0.0356
 CIRCUIT_ATE_FACTOR = 1.5
+CIRCUIT_RUNS = 5
 
 
 class SmokeFailure(RuntimeError):
@@ -146,22 +151,28 @@ def loop_circuit_phase():
     from orb_line_slam_tpu.eval.circuit import N_FRAMES, run_loop_circuit
 
     t0 = phase("loop circuit: 640x320, lines on, pinned schedule")
-    ate, sysm = run_loop_circuit(True)
-    lc = sysm.loop_closer
+    ates = []
+    for run in range(CIRCUIT_RUNS):
+        ate, sysm = run_loop_circuit(True)
+        lc = sysm.loop_closer
+        print(f"run {run}: ATE {ate:.5f} m over {N_FRAMES} frames; loops closed "
+              f"{sysm.n_loops_closed}; global BA applied "
+              f"{lc.n_gba_applied if lc else 0} via {lc.gba_route if lc else None}; "
+              f"keyframes {int(sysm.map.kf_valid.sum())}", flush=True)
+        check(not sysm.warmup_errors, f"warmup errors: {sysm.warmup_errors!r}")
+        check(sysm.n_loops_closed >= 1, f"run {run}: no loop closed")
+        check(lc is not None and lc.n_gba_applied >= 1,
+              f"run {run}: global BA was never applied")
+        ates.append(ate)
+    med = float(np.median(ates))
     limit = CIRCUIT_ATE_FACTOR * CPU_CIRCUIT_ATE_M
-    print(f"ATE {ate:.4f} m over {N_FRAMES} frames (limit {limit:.4f} = "
-          f"{CIRCUIT_ATE_FACTOR} x CPU {CPU_CIRCUIT_ATE_M}); loops closed "
-          f"{sysm.n_loops_closed}; global BA applied "
-          f"{lc.n_gba_applied if lc else 0} via {lc.gba_route if lc else None}; "
-          f"keyframes {int(sysm.map.kf_valid.sum())}")
-    check(not sysm.warmup_errors, f"warmup errors: {sysm.warmup_errors!r}")
-    check(sysm.n_loops_closed >= 1, "no loop closed")
-    check(lc is not None and lc.n_gba_applied >= 1, "global BA was never applied")
-    check(ate <= limit, f"ATE {ate:.4f} m above {limit:.4f} m")
+    print(f"median ATE {med:.5f} m (limit {limit:.5f} = {CIRCUIT_ATE_FACTOR} x "
+          f"CPU {CPU_CIRCUIT_ATE_M})")
+    check(med <= limit, f"median ATE {med:.5f} m above {limit:.5f} m")
     print(f"loop circuit ok ({time.perf_counter() - t0:.1f} s)")
 
 
-def four_card_phase(map_cfg=None):
+def four_card_phase():
     from __graft_entry__ import dryrun_multichip
     from orb_line_slam_tpu.config import MapConfig
     from orb_line_slam_tpu.eval.circuit import run_loop_circuit
@@ -173,10 +184,11 @@ def four_card_phase(map_cfg=None):
     print(f"(a) ok ({time.perf_counter() - t0:.1f} s)")
 
     t0 = phase("four cards (b): System loop circuit at the MapConfig defaults")
-    ate, sysm = run_loop_circuit(True, map_cfg=map_cfg or MapConfig())
+    ate, sysm = run_loop_circuit(True, map_cfg=MapConfig())
     lc = sysm.loop_closer
     print(f"ATE {ate:.4f} m; loops closed {sysm.n_loops_closed}; global BA route "
           f"{lc.gba_route if lc else None}, applied {lc.n_gba_applied if lc else 0}")
+    check(not sysm.warmup_errors, f"warmup errors: {sysm.warmup_errors!r}")
     check(sysm.n_loops_closed >= 1, "no loop closed")
     check(lc is not None and lc.gba_route == "sharded_cg",
           f"global BA took route {lc.gba_route if lc else None}, not sharded_cg")
@@ -214,10 +226,10 @@ def main(argv=None) -> int:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     print(f"\nall phases ok in {time.perf_counter() - t_start:.1f} s")
-    d = jax.devices()[0]
+    d = devices[0]
     print(json.dumps({
         "ok": True,
-        "device": {"platform": d.platform, "kind": d.device_kind, "count": len(jax.devices())},
+        "device": {"platform": d.platform, "kind": d.device_kind, "count": need},
     }))
     return 0
 

@@ -363,12 +363,14 @@ def bundle_adjust_pl(
 
         dp = -(
             jnp.einsum("pij,pj->pi", Vp, gp, precision=_HI)
-            + jnp.einsum("pij,pj->pi", Lp, jnp.einsum("pcik,ci->pk", BLp, dc), precision=_HI)
+            + jnp.einsum("pij,pj->pi", Lp, jnp.einsum("pcik,ci->pk", BLp, dc, precision=_HI),
+                         precision=_HI)
         )
         dp = dp * point_valid[:, None]
         dl = -(
             jnp.einsum("lij,lj->li", Vl, gl, precision=_HI)
-            + jnp.einsum("lij,lj->li", Ll, jnp.einsum("lcik,ci->lk", BLl, dc), precision=_HI)
+            + jnp.einsum("lij,lj->li", Ll, jnp.einsum("lcik,ci->lk", BLl, dc, precision=_HI),
+                         precision=_HI)
         )
         dl = dl * line_valid[:, None]
 

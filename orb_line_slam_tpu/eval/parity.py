@@ -8,7 +8,8 @@ between the two results:
   within half a pixel, median descriptor distance <= 1 bit, stereo
   depths within 1% — this is where a reduced-precision filter once
   flipped borderline BRIEF bits and halved tracking inliers;
-- ``build_line_features``: line sets, endpoints within 1 px, LBD
+- ``build_line_features``: line sets nearly identical (the check that
+  fails line filters run in TF32), endpoints within 1 px, LBD
   descriptors within a few bits, endpoint depths within 2%;
 - ``pose_optimize``: motion-only BA from the same inputs lands within
   1e-3 (rotation entries) and 5e-3 m, inlier counts within 3 (f32
@@ -116,8 +117,10 @@ def line_checks(device, ref, cfg, iml, imr) -> list[Check]:
     lb = _on(ref, build_line_features, iml, imr, cfg.camera, cfg.lines)
     c = "build_line_features"
     both = la.valid & lb.valid
+    # Full-f32 line filters agree on every slot on the H100; with the
+    # Sobel and coherence filters in TF32, 8 of 128 slots differ (0.9375).
     out = [
-        Check(c, "valid-mask agreement", _set_agreement(la.valid, lb.valid), 0.9, upper=False),
+        Check(c, "valid-mask agreement", _set_agreement(la.valid, lb.valid), 0.98, upper=False),
         Check(c, "common lines", float(both.sum()), 8, upper=False),
     ]
     if both.sum() == 0:

@@ -112,7 +112,10 @@ def _ba_shard_body(
         rhs = rhs * m
         dc = jnp.linalg.solve(S, rhs).reshape(C, 6)
 
-        dp = -jnp.einsum("pij,pj->pi", V, gp + jnp.einsum("pcij,ci->pj", B, dc), precision=_HI)
+        dp = -jnp.einsum(
+            "pij,pj->pi", V, gp + jnp.einsum("pcij,ci->pj", B, dc, precision=_HI),
+            precision=_HI,
+        )
         dp = dp * point_valid[:, None]
 
         dR, dt = se3_exp(dc * free_c)
